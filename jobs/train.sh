@@ -1,8 +1,11 @@
 #!/usr/bin/env bash
-# Single-host TPU training launch (equivalent of the reference's per-scene
+# Single-host GPU training launch (equivalent of the reference's per-scene
 # SLURM jobs, /root/reference/jobs/run_job_bearPNG_001.job — 1 GPU, 24h).
+# One process drives every GPU of the host: the runner's default --shard auto
+# splits each ray batch over all visible cards (pick them with
+# CUDA_VISIBLE_DEVICES; --shard off trains on the first card only).
 #
-# Usage: jobs/train_tpu.sh CASE [CONF] [EXTRA_ARGS...]
+# Usage: jobs/train.sh CASE [CONF] [EXTRA_ARGS...]
 #
 # Per-case hyperparameter templating (the reference jobs regenerate the conf
 # via heredoc with CASE/N_ITERATIONS/BATCH_SIZE/LEARNING_RATE,
@@ -11,13 +14,13 @@
 # variants:
 #
 #   N_ITERATIONS=1000 BATCH_SIZE=512 LEARNING_RATE=5e-4 WARM_UP_ITER=700 \
-#     jobs/train_tpu.sh bearPNG ./confs/wmask_rnb.conf
+#     jobs/train.sh bearPNG ./confs/wmask_rnb.conf
 #
 # Arbitrary extra overrides pass through as EXTRA_ARGS, e.g.
-#   jobs/train_tpu.sh bearPNG ./confs/wmask_rnb.conf --set train.remat=true
+#   jobs/train.sh bearPNG ./confs/wmask_rnb.conf --set train.remat=true
 set -euo pipefail
 
-CASE="${1:?usage: train_tpu.sh CASE [CONF] [extra args]}"
+CASE="${1:?usage: train.sh CASE [CONF] [extra args]}"
 CONF="${2:-./confs/wmask_rnb.conf}"
 shift || true; shift || true
 

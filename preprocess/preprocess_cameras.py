@@ -218,9 +218,9 @@ def get_normalization(source_dir: str, use_linear_init: bool = False,
         # +/-scale around the (possibly biased) epipolar centroid
         # (`preprocess_cameras.py:131-135`), which can CLIP the hull when
         # the centroid sits off the true center — the clipped centroid then
-        # inherits the bias. The wider lattice costs nothing (same
-        # grid_size) and the refined scale is re-derived from the kept
-        # points, not from the input scale.
+        # inherits the bias. The wider lattice keeps grid_size, so its
+        # cells are 3x coarser; the refined scale is re-derived from the
+        # kept points, not from the input scale.
         centroid, scale, _ = refine_visual_hull(
             masks_all, Ps, 3.0 * float(normalization[0, 0]),
             normalization[:3, 3])

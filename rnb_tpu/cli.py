@@ -8,7 +8,7 @@
                          [--shard auto|off|N]
 
 Differences: ``--gpu`` is replaced by ``--shard`` (device-mesh width; the
-reference selects one CUDA device, we shard a TPU mesh); the broken
+reference selects one CUDA device, we shard over every visible device); the broken
 ``validate_image_ps`` mode works here (SURVEY.md §Fidelity).
 """
 

@@ -291,7 +291,7 @@ def parse_string(text: str) -> Config:
 
 def apply_override(conf: Config, override: str) -> None:
     """Apply one ``dotted.path=value`` override in place, with the same value
-    coercion the parser uses (the TPU replacement for the reference jobs'
+    coercion the parser uses (the replacement for the reference jobs'
     heredoc-templated per-case confs,
     `/root/reference/jobs/run_job_bearPNG_001.job:20-111`)."""
     if "=" not in override:

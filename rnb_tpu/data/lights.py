@@ -1,4 +1,4 @@
-"""Virtual photometric-stereo lights — the RNb core idea, TPU-native.
+"""Virtual photometric-stereo lights — the RNb core idea, on device.
 
 The reference materializes per-pixel light directions by running a 3x3 SVD of
 ``n n^T`` at every pixel of every view at dataset-load time
@@ -26,8 +26,14 @@ per-pixel main lights, base dirs ``u = -[sinσ cosτ, sinσ sinτ, cosσ]``.
 
 from __future__ import annotations
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+
+# The light and ray geometry contracts over 3 components; it runs in full f32
+# whatever the program's matmul precision (a TF32 dot would round directions
+# and supervision colors to 10 mantissa bits), at negligible cost.
+EXACT = jax.lax.Precision.HIGHEST
 
 TILT_DEG = (0.0, 120.0, 240.0)
 SLANT_WARMUP_DEG = 30.0
@@ -81,7 +87,7 @@ def per_pixel_light_dirs_cam(normals: jnp.ndarray) -> jnp.ndarray:
     lights l_k = R(n) u_k (`dataset.py:290-292`)."""
     R = normal_frames(normals)                   # [..., 3, 3]
     u = jnp.asarray(base_light_dirs(SLANT_MAIN_DEG))  # [L, 3]
-    l = jnp.einsum("...ij,lj->l...i", R, u)
+    l = jnp.einsum("...ij,lj->l...i", R, u, precision=EXACT)
     return l
 
 
@@ -93,7 +99,8 @@ def shade(normals: jnp.ndarray, light_dirs: jnp.ndarray,
     normals [..., 3]; light_dirs [L, ..., 3] or [L, 3]; returns [L, ..., 3].
     """
     if light_dirs.ndim == 2:  # fixed lights: broadcast over pixels
-        shaded = jnp.einsum("...c,lc->l...", normals, light_dirs)
+        shaded = jnp.einsum("...c,lc->l...", normals, light_dirs,
+                            precision=EXACT)
     else:
         shaded = (normals[None] * light_dirs).sum(-1)
     shaded = jnp.maximum(shaded, 0.0)[..., None]        # [L, ..., 1]

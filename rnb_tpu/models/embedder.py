@@ -6,8 +6,8 @@ log-spaced frequencies ``f_k = 2^k, k = 0..multires-1`` and the identity block
 first (the SDF geometric init relies on raw coordinates occupying the first
 ``input_dims`` channels, `fields.py:62-63`).
 
-TPU notes: the encode is pure elementwise VPU work; XLA fuses it into the
-consuming matmul's producer. Frequencies are baked as compile-time constants.
+The encode is pure elementwise work that XLA fuses into the consuming
+matmul's producer. Frequencies are baked as compile-time constants.
 """
 
 from __future__ import annotations

@@ -19,15 +19,14 @@ Parity-critical details preserved:
     layer 4, viewdirs head (feature -> cat views -> W/2 -> rgb).
   * SingleVarianceNetwork (`fields.py:317-325`): scalar param, inv_s=exp(10v).
 
-∇SDF: the renderer's production path is the fused Pallas core
-(ops/pallas_sdf_core); this module provides the XLA implementations — a
-batched jax.vjp (sdf_value_feat_grad, re-differentiable for the eikonal
-term; the off-TPU fallback) and a forward-mode variant
-(sdf_value_feat_grad_fwd, kept for study) — replacing torch's per-call
-double backprop (`fields.py:114-127`).
+∇SDF: two implementations replace torch's per-call double backprop
+(`fields.py:114-127`): a batched jax.vjp (sdf_value_feat_grad, the
+renderer's default, re-differentiated for the eikonal term) and a
+forward-mode variant (sdf_value_feat_grad_fwd) that makes ∇SDF a primal
+output; renderer.RendererConfig.core_impl picks one.
 
 Weight layout: ``W`` is stored [in, out] so apply is ``x @ W + b`` (row-major
-batch onto the MXU). Weight-norm layers store ``{v: [in,out], g: [out], b}``
+batch onto the matrix units). Weight-norm layers store ``{v: [in,out], g: [out], b}``
 with effective ``W = v * g / ||v||_col`` (torch weight_norm dim=0 ≡ per-output
 norm ≡ per-column here).
 """
@@ -187,8 +186,7 @@ def sdf_only_lowp(cfg: SDFConfig, params, x: jnp.ndarray) -> jnp.ndarray:
 
     The 5 per-step up-sampling sweeps (`/root/reference/models/renderer.py:
     965-984`) only *place samples* — their SDF values never enter the loss, so
-    bf16 matmuls (1 MXU pass instead of the 6 an f32-highest dot costs) are
-    safe there. Kept precise where it's cheap: weight-norm folding, positional
+    bf16 matmuls are safe there. Kept precise where it's cheap: weight-norm folding, positional
     encoding and softplus stay f32; only matmul operands are bf16 with f32
     accumulation. The differentiable path (sdf_value_feat_grad) is untouched.
     """
@@ -239,12 +237,11 @@ def sdf_value_feat_grad_fwd(cfg: SDFConfig, params, pts: jnp.ndarray):
 
     Why this exists: with the vjp formulation the eikonal term makes the
     training loss second-order in the SDF params — XLA differentiates a
-    vjp-of-vjp program whose intermediates round-trip HBM (~24 GB/step at
-    batch 512, the measured step bottleneck). Here the gradient is a *primal*
-    output of a plain feed-forward chain, so the loss is FIRST-order in it:
-    XLA's single reverse pass stores/reads far fewer intermediates. Numerics:
-    identical math in the same f32/matmul-precision regime (tested to ~1e-6
-    against the vjp path, tests/test_fields.py).
+    vjp-of-vjp program whose intermediates round-trip device memory. Here the
+    gradient is a *primal* output of a plain feed-forward chain, so the loss
+    is FIRST-order in it, at the price of a [N, 3, C] tangent per layer.
+    Numerics: identical math in the same f32/matmul-precision regime
+    (tests/test_fields.py::test_fwdmode_core_matches_vjp_core).
     """
     N = pts.shape[0]
     u = pts * cfg.scale

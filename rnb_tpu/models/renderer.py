@@ -1,11 +1,10 @@
-"""NeuS volume renderer, TPU-native.
+"""NeuS volume renderer.
 
 Re-designs `/root/reference/models/renderer.py` as pure jit-compilable
 functions with static shapes:
 
   * `sample_pdf` — inverse-CDF importance sampling (`renderer.py:39-69`) as
-    dense comparison-count + one-hot contractions (searchsorted/gather
-    formulations lower to per-element loops on TPU — see the fn docstring).
+    dense comparison-count + one-hot contractions (see the fn docstring).
   * `up_sample` / `cat_z_vals` — NeuS hierarchical up-sampling
     (`renderer.py:132-192`); the 4 rounds run unrolled under stop_gradient
     with static widths 64→80→96→112→128, so XLA compiles one fixed program
@@ -14,9 +13,8 @@ functions with static shapes:
   * `render_core_mvps` — the hot training integrator (`renderer.py:466-554`):
     sigmoid-SDF alpha from section-estimated SDFs, cos-annealing, sphere
     masks, transmittance via exclusive cumprod, eikonal error over the
-    relaxed sphere. ∇SDF comes from the fused Pallas core
-    (ops/pallas_sdf_core, `core_impl='pallas'`) on TPU, or a batched vjp
-    off-TPU — never a per-point double-backprop.
+    relaxed sphere. ∇SDF comes from one batched vjp (`core_impl='vjp'`) or
+    forward-mode tangents (`'fwdmode'`) — never a per-point double-backprop.
   * `render_rnb` / `render_rnb_warmup` — per-light Lambertian compositing
     (`renderer.py:828-1033`): warm-up shades with ReLU(n·l) under fixed
     lights; the main phase omits the ReLU because per-pixel virtual lights
@@ -48,6 +46,13 @@ import jax.numpy as jnp
 from rnb_tpu.models import fields
 from rnb_tpu.models.fields import ModelStatics
 
+# precision of contractions that must reproduce f32 operands exactly (one-hot
+# gathers and permutations)
+EXACT = jax.lax.Precision.HIGHEST
+
+# implementations of the differentiable SDF core (render_core_mvps)
+CORE_IMPLS = ("vjp", "fwdmode")
+
 
 @dataclasses.dataclass(frozen=True)
 class RendererConfig:
@@ -65,12 +70,10 @@ class RendererConfig:
                       fields.sdf_only_lowp for why bf16 is safe there)
       remat           rematerialize the field nets in the backward pass
                       (jax.checkpoint) instead of storing activations
-      core_impl       differentiable-core implementation: 'pallas' (fused
-                      VMEM kernel with hand-derived VJP, ops/pallas_sdf_core
-                      — the production default; falls back to 'vjp' off-TPU),
-                      'vjp' (batched reverse-mode like the reference), or
-                      'fwdmode' (forward-mode tangents make ∇SDF a primal
-                      output; kept for study — measured slower under XLA)
+      core_impl       differentiable-core implementation (CORE_IMPLS):
+                      'vjp' (batched reverse-mode like the reference; the
+                      default) or 'fwdmode' (forward-mode tangents make ∇SDF
+                      a primal output, so the eikonal loss is first order)
     """
     n_samples: int = 64
     n_importance: int = 64
@@ -79,11 +82,20 @@ class RendererConfig:
     perturb: float = 1.0
     upsample_prec: str = "bf16"
     remat: bool = False
-    core_impl: str = "pallas"
+    core_impl: str = "vjp"
+
+    def __post_init__(self):
+        check_core_impl(self.core_impl)
 
     @property
     def total_samples(self) -> int:
         return self.n_samples + self.n_importance
+
+
+def check_core_impl(core_impl: str) -> None:
+    if core_impl not in CORE_IMPLS:
+        raise ValueError(f"core_impl must be one of {CORE_IMPLS}, got "
+                         f"{core_impl!r}")
 
 
 def renderer_conf(conf_model) -> RendererConfig:
@@ -101,11 +113,12 @@ def sample_pdf(bins: jnp.ndarray, weights: jnp.ndarray, n_samples: int,
     """Inverse-CDF sampling (`renderer.py:39-69`). bins [B,N], weights [B,N-1]
     -> samples [B,n_samples]. det=True uses midpoint stratification.
 
-    TPU note: the inverse CDF is a comparison-count (insertion index =
-    #{cdf <= u}) and the 4 index gathers are one one-hot contraction —
-    dense VPU/MXU work over [B, N, n_samples]. jnp.searchsorted +
-    take_along_axis lower to per-element loops/gathers that dominated the
-    whole train step (~7 ms of a 24 ms step measured on v5e)."""
+    The inverse CDF is a comparison-count (insertion index = #{cdf <= u}) and
+    the 4 index gathers are one-hot contractions: dense work over
+    [B, N, n_samples] instead of searchsorted + take_along_axis. The
+    contractions run at HIGHEST precision: a one-hot dot only reproduces the
+    gathered f32 values exactly when the dot is exact (a TF32 dot keeps 10
+    mantissa bits)."""
     weights = weights + 1e-5
     pdf = weights / jnp.sum(weights, axis=-1, keepdims=True)
     cdf = jnp.cumsum(pdf, axis=-1)
@@ -130,10 +143,11 @@ def sample_pdf(bins: jnp.ndarray, weights: jnp.ndarray, n_samples: int,
     iota = jax.lax.broadcasted_iota(jnp.int32, (1, n_samples, N), 2)
     oh_b = (iota == below[:, :, None]).astype(cdf.dtype)      # [B, S, N]
     oh_a = (iota == above[:, :, None]).astype(cdf.dtype)
-    cdf_below = jnp.einsum("bsn,bn->bs", oh_b, cdf)
-    cdf_above = jnp.einsum("bsn,bn->bs", oh_a, cdf)
-    bins_below = jnp.einsum("bsn,bn->bs", oh_b, bins)
-    bins_above = jnp.einsum("bsn,bn->bs", oh_a, bins)
+    gather = partial(jnp.einsum, "bsn,bn->bs", precision=EXACT)
+    cdf_below = gather(oh_b, cdf)
+    cdf_above = gather(oh_a, cdf)
+    bins_below = gather(oh_b, bins)
+    bins_above = gather(oh_a, bins)
 
     denom = cdf_above - cdf_below
     denom = jnp.where(denom < 1e-5, 1.0, denom)
@@ -184,10 +198,9 @@ def _sdf_infer(statics: ModelStatics, params, pts_flat: jnp.ndarray,
                prec: str = "bf16"):
     """No-grad SDF sweep (sample placement only, values never enter the loss).
 
-    Default: bf16 matmuls with f32 accumulation (fields.sdf_only_lowp) — on
-    TPU this costs 1 MXU pass per dot instead of the 6 of f32-highest, and
-    sample-placement accuracy is unaffected (validated by
-    tools/validate_precision.py: sphere-mesh error identical to f32).
+    Default: bf16 matmuls with f32 accumulation (fields.sdf_only_lowp);
+    sample-placement accuracy is unaffected (check with
+    tools/validate_precision.py: sphere-mesh error against f32).
     prec='f32' restores exact-f32 sweeps (conf key
     neus_renderer.upsample_prec).
     """
@@ -201,11 +214,8 @@ def _merge_sorted(z: jnp.ndarray, new: jnp.ndarray, *vals):
     ranks are index + cross-count, the permutation is applied as a one-hot
     contraction. Tie-break matches stable argsort of concat([z, new])
     (z entries first). Extra `vals` pairs (v_z [B,W1], v_new [B,W2]) are
-    carried through the same permutation.
-
-    TPU note: argsort + take_along_axis on [B,128] lowered to serial
-    sorts/gathers that cost several ms per train step; this is dense
-    comparison + MXU work."""
+    carried through the same permutation (dense comparisons and exact
+    contractions in place of argsort + take_along_axis)."""
     B, W1 = z.shape
     W2 = new.shape[-1]
     W = W1 + W2
@@ -220,8 +230,8 @@ def _merge_sorted(z: jnp.ndarray, new: jnp.ndarray, *vals):
     oh_new = (iota_w == rank_new[:, :, None]).astype(z.dtype)  # [B, W2, W]
 
     def scatter(v_z, v_new):
-        return (jnp.einsum("biw,bi->bw", oh_z, v_z)
-                + jnp.einsum("bjw,bj->bw", oh_new, v_new))
+        return (jnp.einsum("biw,bi->bw", oh_z, v_z, precision=EXACT)
+                + jnp.einsum("bjw,bj->bw", oh_new, v_new, precision=EXACT))
 
     out = [scatter(z, new)]
     for v_z, v_new in vals:
@@ -286,18 +296,9 @@ def render_core_outside(statics: ModelStatics, rcfg: RendererConfig, params,
     dirs = jnp.broadcast_to(rays_d[:, None, :], (batch_size, n_samples, 3))
 
     d_in = 3 + int(rcfg.n_outside > 0)
-    from rnb_tpu.ops import pallas_nerf
-    if (rcfg.core_impl == "pallas" and pallas_nerf.supported(statics.nerf)
-            and jax.default_backend() == "tpu"):
-        # fused background net: its XLA form cost 5.6 ms of a 16.1 ms
-        # womask step (n_outside=4 vs 0 differencing, round 5)
-        density, color_raw = pallas_nerf.nerf_apply_fused(
-            statics.nerf, params["nerf"],
-            pts4.reshape(-1, 4)[:, :d_in], dirs.reshape(-1, 3))
-    else:
-        density, color_raw = fields.nerf_apply(
-            statics.nerf, params["nerf"],
-            pts4.reshape(-1, 4)[:, :d_in], dirs.reshape(-1, 3))
+    density, color_raw = fields.nerf_apply(
+        statics.nerf, params["nerf"],
+        pts4.reshape(-1, 4)[:, :d_in], dirs.reshape(-1, 3))
     sampled_color = jax.nn.sigmoid(color_raw).reshape(batch_size, n_samples, 3)
     alpha = 1.0 - jnp.exp(-jax.nn.softplus(density.reshape(batch_size, n_samples)) * dists)
     weights = _exclusive_cumprod_transmittance(alpha)
@@ -328,33 +329,18 @@ def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
     dirs_flat = dirs.reshape(-1, 3)
 
     # remat=True: rematerialize the field networks in the backward pass
-    # instead of storing their activations — the step is HBM-bandwidth-bound
-    # (~25 GB/step at batch 512 under plain XLA), so trading recompute FLOPs
-    # for activation traffic can win (conf key neus_renderer.remat,
-    # RNB_REMAT env override).
-    from rnb_tpu.ops import pallas_albedo, pallas_sdf_core
-    on_tpu = jax.default_backend() == "tpu"
-    if (core_impl == "pallas" and pallas_sdf_core.supported(statics.sdf)
-            and on_tpu):
-        def _svfg(p, x):
-            return pallas_sdf_core.sdf_value_feat_grad_fused(statics.sdf, p, x)
-    elif core_impl == "fwdmode":
-        def _svfg(p, x):
-            return fields.sdf_value_feat_grad_fwd(statics.sdf, p, x)
-    else:
-        def _svfg(p, x):
-            return fields.sdf_value_feat_grad(statics.sdf, p, x)
+    # instead of storing their activations, trading recompute FLOPs for
+    # activation traffic (conf key neus_renderer.remat, RNB_REMAT env
+    # override).
+    check_core_impl(core_impl)
+    core = (fields.sdf_value_feat_grad_fwd if core_impl == "fwdmode"
+            else fields.sdf_value_feat_grad)
 
-    if (core_impl == "pallas" and pallas_albedo.supported(statics.color)
-            and on_tpu):
-        # fused albedo chain (mode no_view_dir discards view dirs): its XLA
-        # form cost 3.1 ms of an 11.4 ms step (measured by no_albedo
-        # differencing) for 3 matmuls — pure HBM activation traffic
-        def _color(p, x, g, d, f):
-            return pallas_albedo.albedo_apply_fused(statics.color, p, x, g, f)
-    else:
-        def _color(p, x, g, d, f):
-            return fields.rendering_apply(statics.color, p, x, g, d, f)
+    def _svfg(p, x):
+        return core(statics.sdf, p, x)
+
+    def _color(p, x, g, d, f):
+        return fields.rendering_apply(statics.color, p, x, g, d, f)
 
     if remat:
         _svfg = jax.checkpoint(_svfg)
@@ -616,8 +602,7 @@ def grid_chunk_points(start, chunk: int, bound_min, bound_max,
                       resolution: int) -> jnp.ndarray:
     """[chunk, 3] grid coordinates for flat indices [start, start+chunk),
     computed ON DEVICE from the bounds — the host never materializes or
-    uploads the 512³×3 point cloud (1.6 GB; on a remote-TPU link that
-    upload, not the 134M MLP evals, would dominate extraction)."""
+    uploads the 512³×3 point cloud (1.6 GB)."""
     idx = start + jax.lax.broadcasted_iota(jnp.int32, (chunk, 1), 0)[:, 0]
     bmin = jnp.asarray(bound_min, jnp.float32)
     bmax = jnp.asarray(bound_max, jnp.float32)

@@ -5,19 +5,26 @@ Replaces the reference's PyMCubes call (`/root/reference/models/renderer.py:31`)
 and the vertex-rescale convention (`renderer.py:35`): the native kernel emits
 vertices in grid-index space; `extract_geometry` rescales into the bbox.
 
-The C++ module is compiled on demand with the repo's Makefile (g++ is part of
-the environment) and loaded via ctypes; if compilation is impossible the
-numpy fallback keeps every feature working (slower, denser triangulation).
+The C++ module is not shipped as a binary: it is built from
+``native/marching_cubes.cpp`` with ``native/Makefile`` at first use, on the
+machine that runs it (the library is git-ignored), and loaded via ctypes. If
+it cannot be built, the numpy fallback keeps every feature working (slower,
+denser triangulation) and a warning names the reason; `native_available`
+tells callers which one runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import logging
 import os
 import subprocess
 import threading
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libmarching_cubes.so")
@@ -26,17 +33,26 @@ _lib = None
 _native_failed = False
 
 
+def _build_native() -> None:
+    """make the library unless it is newer than its source. A file lock
+    serializes concurrent first uses (test workers, several processes of one
+    job), so no process loads a half-written library."""
+    src = os.path.join(_NATIVE_DIR, "marching_cubes.cpp")
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (not os.path.exists(_LIB_PATH)
+                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
+            subprocess.run(["make", "-C", _NATIVE_DIR],
+                           check=True, capture_output=True, text=True)
+
+
 def _load_native():
     global _lib, _native_failed
     with _lock:
         if _lib is not None or _native_failed:
             return _lib
         try:
-            if (not os.path.exists(_LIB_PATH)
-                    or os.path.getmtime(_LIB_PATH)
-                    < os.path.getmtime(os.path.join(_NATIVE_DIR, "marching_cubes.cpp"))):
-                subprocess.run(["make", "-C", _NATIVE_DIR],
-                               check=True, capture_output=True)
+            _build_native()
             lib = ctypes.CDLL(_LIB_PATH)
             lib.mc_run.restype = ctypes.c_void_p
             lib.mc_run.argtypes = [
@@ -51,7 +67,11 @@ def _load_native():
                                    ctypes.POINTER(ctypes.c_int32)]
             lib.mc_free.argtypes = [ctypes.c_void_p]
             _lib = lib
-        except Exception:
+        except Exception as e:
+            detail = getattr(e, "stderr", "") or ""
+            logger.warning("native marching cubes unavailable (%s%s); using "
+                           "the numpy marching-tetrahedra fallback", e,
+                           f": {detail.strip()}" if detail else "")
             _native_failed = True
             _lib = None
         return _lib

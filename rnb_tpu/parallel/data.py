@@ -11,8 +11,8 @@ Here the VIEW axis is sharded across the mesh's devices:
     d*V_local + s), so a step sees n_dev distinct views instead of the
     reference's one (`/root/reference/exp_runner.py:172-174`) — same
     expectation over an epoch, lower gradient variance per step, and ZERO
-    cross-device data movement in the sampling path (only grad psums ride
-    the ICI).
+    cross-device data movement in the sampling path (only grad psums cross
+    the interconnect).
   * multi-host: each process loads ONLY the view files its devices own
     (`host_local_view_indices` -> Dataset.from_conf(view_subset=...)), then
     `jax.make_array_from_process_local_data` assembles the global sharded

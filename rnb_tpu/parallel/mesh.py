@@ -1,11 +1,12 @@
 """Device mesh helpers.
 
 The reference is strictly single-GPU (`/root/reference/exp_runner.py:21,687`;
-no torch.distributed anywhere — SURVEY.md §2.3), so this whole package is a
-greenfield TPU component: a 1-D ``ray`` mesh axis shards the ray batch across
-chips; gradients are combined with a mean over the axis (jnp averages inside
-shard_map / XLA inserts the psum over ICI). Multi-host extends the same mesh
-over all processes via ``jax.distributed.initialize`` (call
+no torch.distributed anywhere — SURVEY.md §2.3), so this whole package is
+greenfield: a 1-D ``ray`` mesh axis over the devices (a plain list of cards;
+on one host every card reaches every other over NVLink) shards the ray batch;
+gradients are combined with a mean over the axis, which XLA hands to NCCL
+on GPUs. Multi-host extends the same mesh over all processes via
+``jax.distributed.initialize`` (call
 ``maybe_initialize_distributed`` before device queries).
 """
 

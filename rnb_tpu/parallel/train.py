@@ -1,15 +1,15 @@
 """Data-parallel training over a 1-D ray mesh (greenfield — SURVEY.md §2.3).
 
-Every ray is independent, so the natural TPU scaling axis is the ray batch:
+Every ray is independent, so the natural scaling axis is the ray batch:
 each device samples and renders ``batch/n_dev`` rays of the same view, local
-loss partial-sums are combined with ``psum`` over ICI, and each device then
-holds the *global* loss; differentiating it yields local-data gradients whose
-``psum`` is the exact full-batch gradient (identical math to the reference's
+loss partial-sums are combined with ``psum``, and each device then
+holds the *global* loss; differentiating it yields per-device gradients whose
+``pmean`` is the exact full-batch gradient (identical math to the reference's
 single-GPU step — mask_sum, eikonal normalization and BCE mean are all
 reassembled from psum'd numerators/denominators, `exp_runner.py:241-256`).
 
-Built on jax.shard_map with explicit collectives (rides ICI on a pod slice;
-multi-host joins the same mesh via jax.distributed). Params stay replicated
+Built on jax.shard_map with explicit collectives (XLA hands them to NCCL on
+GPUs; multi-host joins the same mesh via jax.distributed). Params stay replicated
 (the nets are ~1M params). Two dataset placements:
 
   * make_sharded_train_step — maps replicated on every device (simple, but
@@ -107,6 +107,15 @@ def _make_local_loss(statics: ModelStatics, rcfg: RendererConfig,
     return local_loss
 
 
+def _global_grads(grads):
+    """Full-batch gradient from the per-device gradients of the global
+    (psum'd) loss. The transpose of psum is a psum of the cotangents, so
+    device d holds n_dev x (its own rays' share of the gradient); the mean
+    over the axis is therefore exactly the full-batch gradient (a psum would
+    be n_dev times too large)."""
+    return jax.lax.pmean(grads, RAY_AXIS)
+
+
 def make_sharded_train_step(statics: ModelStatics, rcfg: RendererConfig,
                             tcfg: TrainConfig, warmup: bool, no_albedo: bool,
                             mesh: Mesh, batch_size: int | None = None,
@@ -136,9 +145,7 @@ def make_sharded_train_step(statics: ModelStatics, rcfg: RendererConfig,
                                  jax.lax.axis_index(RAY_AXIS))
         (loss, metrics), grads = jax.value_and_grad(
             local_loss, has_aux=True)(params, arrays, view_idx, key, step)
-        # loss is already global (psum'd); grads carry only local-data terms
-        grads = jax.lax.psum(grads, RAY_AXIS)
-        return grads, metrics
+        return _global_grads(grads), metrics
 
     def step_fn(state: TrainState, arrays: ds.DataArrays, view_idx, base_key):
         grads, metrics = sharded_grads(state.params, arrays, view_idx,
@@ -154,6 +161,29 @@ def make_sharded_train_step(statics: ModelStatics, rcfg: RendererConfig,
         return jax.jit(with_metrics_ring(step_fn),
                        donate_argnums=(0, 4) if donate else (4,))
     return jax.jit(step_fn, donate_argnums=(0,) if donate else ())
+
+
+def shard_batches(arrays: ds.DataArrays, view_idx, base_key, step,
+                  n_dev: int, local_bsz: int) -> ds.RayBatch:
+    """The rays make_sharded_train_step samples at `step`, drawn on one
+    device: device d's ray key is split from fold_in(fold_in(base_key,
+    step), d), as in sharded_grads. Returns the union as one [n_dev *
+    local_bsz] RayBatch, in device order."""
+    def one(d):
+        key = jax.random.fold_in(jax.random.fold_in(base_key, step), d)
+        k_ray, _ = jax.random.split(key)
+        return ds.sample_rays_on_all_lights(arrays, view_idx, k_ray,
+                                            local_bsz)
+
+    parts = [one(d) for d in range(n_dev)]
+    # per-ray fields are batch-major except the [L, B, 3] light/color ones;
+    # lights_warmup ([L, 3]) is per view, identical across shards
+    axis = {"rgb_warmup": 1, "rgb": 1, "lights": 1}
+    return ds.RayBatch(**{
+        f: (parts[0].lights_warmup if f == "lights_warmup" else
+            jnp.concatenate([getattr(p, f) for p in parts],
+                            axis=axis.get(f, 0)))
+        for f in ds.RayBatch._fields})
 
 
 def rnd_total_samples(rcfg: RendererConfig) -> int:
@@ -199,8 +229,7 @@ def make_view_sharded_train_step(statics: ModelStatics, rcfg: RendererConfig,
                                  jax.lax.axis_index(RAY_AXIS))
         (loss, metrics), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params, arrays, view_local, key, step)
-        grads = jax.lax.psum(grads, RAY_AXIS)
-        return grads, metrics
+        return _global_grads(grads), metrics
 
     def step_fn(state: TrainState, arrays: ds.DataArrays, view_slot, base_key):
         grads, metrics = sharded_grads(state.params, arrays, view_slot,

@@ -3,55 +3,145 @@
 Mirrors the reference's bit-depth-aware loaders and sign conventions
 (`/root/reference/models/dataset.py:48-96`):
 
-  * images: uint8/uint16 PNG -> float [0,1], BGR->RGB
+  * images: uint8/uint16 PNG -> float [0,1] RGB
   * normal maps: image*2-1 with y and z components negated (camera space,
     z pointing *into* the scene for valid pixels)
   * savers are exact inverses
 
-plus a dependency-free binary-PLY writer (the reference uses trimesh for
-export only, `exp_runner.py:576-578`; trimesh is not available here).
+PNG is read and written here with numpy and zlib alone (8/16-bit gray, gray
++alpha, RGB, RGBA; non-interlaced; all five row filters on read), so the data
+path needs no image library. Plus a bilinear resize and a dependency-free
+binary-PLY writer (the reference uses trimesh for export only,
+`exp_runner.py:576-578`).
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
-try:
-    import cv2 as cv
-    _HAS_CV2 = True
-except Exception:  # pragma: no cover
-    cv = None
-    _HAS_CV2 = False
+# ---------------------------------------------------------------------------
+# PNG codec
+# ---------------------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# color type -> channels (0 gray, 2 RGB, 4 gray+alpha, 6 RGBA)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
-def _imread_unchanged(path: str) -> np.ndarray:
-    if _HAS_CV2:
-        img = cv.imread(path, cv.IMREAD_UNCHANGED)
-        if img is None:
-            raise FileNotFoundError(path)
-        return img
-    from PIL import Image
-    img = np.asarray(Image.open(path))
-    if img.ndim == 3 and img.shape[2] >= 3:  # PIL gives RGB; convert to BGR
-        img = img[..., [2, 1, 0] + list(range(3, img.shape[2]))]
-    return img
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters -> [h, stride] uint8."""
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:]
+        if ftype == 0:                                   # None
+            cur = line.copy()
+        elif ftype == 1:                                 # Sub: running sum
+            cur = np.zeros(stride + bpp, np.int64)       # per channel lane
+            cur[bpp:] = line
+            cur = np.cumsum(cur.reshape(-1, bpp), axis=0).reshape(-1)[bpp:]
+            cur = (cur & 0xFF).astype(np.uint8)
+        elif ftype == 2:                                 # Up
+            cur = line + prev
+        elif ftype in (3, 4):                            # Average / Paeth
+            cur = bytearray(line.tobytes())
+            up = prev.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                    continue
+                c = up[i - bpp] if i >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = out[y]
+    return out
 
+
+def read_png(path: str) -> np.ndarray:
+    """PNG -> uint8/uint16 array in the file's channel order: [H,W] gray,
+    [H,W,2] gray+alpha, [H,W,3] RGB, [H,W,4] RGBA."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    w, h, depth, ctype, _, _, interlace = hdr
+    if ctype not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color "
+                         f"type {ctype}, interlace {interlace})")
+    ch = _PNG_CHANNELS[ctype]
+    bpp = ch * depth // 8
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    if depth == 16:
+        img = img.view(">u2").astype(np.uint16)
+    img = img.reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """uint8/uint16 [H,W] or [H,W,C] (C = 1..4, file channel order) -> PNG,
+    unfiltered rows, zlib at `level`."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"write_png takes uint8 or uint16, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    depth = img.dtype.itemsize * 8
+    rows = img.astype(">u2" if depth == 16 else np.uint8).reshape(h, -1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rows.view(np.uint8)],
+                          axis=1)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                                  ctype, 0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+                + _png_chunk(b"IEND", b""))
+
+
+# ---------------------------------------------------------------------------
+# images, normal maps, masks
+# ---------------------------------------------------------------------------
 
 def load_image(path: str) -> np.ndarray:
     """-> float32 [H,W,3] RGB in [0,1] (`dataset.py:48-57`)."""
-    image = _imread_unchanged(path)
-    if image.dtype == np.uint8:
-        denom = np.float32(2 ** 8 - 1)
-    elif image.dtype == np.uint16:
-        denom = np.float32(2 ** 16 - 1)
-    else:
-        raise ValueError(f"unsupported bit depth {image.dtype} for {path}")
+    image = read_png(path)
+    denom = np.float32(np.iinfo(image.dtype).max)
+    if image.ndim == 3 and image.shape[2] == 2:   # gray + alpha
+        image = image[..., 0]
     if image.ndim == 2:
         image = np.stack([image] * 3, axis=-1)
-    image = image[..., :3][..., ::-1]  # BGR -> RGB
-    return np.ascontiguousarray(image, dtype=np.float32) / denom
+    return np.ascontiguousarray(image[..., :3], dtype=np.float32) / denom
 
 
 def load_normal(path: str) -> np.ndarray:
@@ -65,7 +155,7 @@ def load_normal(path: str) -> np.ndarray:
 
 def load_mask(path: str) -> np.ndarray:
     """-> float32 [H,W] binarized at 0.5 (`dataset.py:132-136`)."""
-    img = _imread_unchanged(path)
+    img = read_png(path)
     if img.ndim == 3:
         img = img[..., 0]
     img = img.astype(np.float64) / 255.0
@@ -76,13 +166,7 @@ def save_image(path: str, image: np.ndarray, bit_depth: int = 8) -> None:
     """[H,W,3] RGB float [0,1] -> PNG (`dataset.py:70-85`)."""
     arr = np.clip(np.asarray(image, np.float64) * (2 ** bit_depth - 1),
                   0, 2 ** bit_depth - 1)
-    arr = arr.astype(np.uint8 if bit_depth == 8 else np.uint16)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    if _HAS_CV2:
-        cv.imwrite(path, arr[..., ::-1], [cv.IMWRITE_PNG_COMPRESSION, 0])
-    else:
-        from PIL import Image
-        Image.fromarray(arr).save(path)
+    write_png(path, arr.astype(np.uint8 if bit_depth == 8 else np.uint16))
 
 
 def save_normal(path: str, normal: np.ndarray, bit_depth: int = 8) -> None:
@@ -93,11 +177,26 @@ def save_normal(path: str, normal: np.ndarray, bit_depth: int = 8) -> None:
     save_image(path, (n + 1.0) / 2.0, bit_depth=bit_depth)
 
 
+def _linear_taps(n_in: int, n_out: int):
+    """Source indices and weights of a half-pixel-centered linear resize
+    along one axis (OpenCV's INTER_LINEAR convention, edges clamped)."""
+    x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    x0 = np.floor(x)
+    t = (x - x0).astype(np.float32)
+    i0 = np.clip(x0, 0, n_in - 1).astype(np.int64)
+    i1 = np.clip(x0 + 1, 0, n_in - 1).astype(np.int64)
+    return i0, i1, t
+
+
 def resize_image(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    if _HAS_CV2:
-        return cv.resize(img, (w, h))
-    from PIL import Image
-    return np.asarray(Image.fromarray((img * 255).astype(np.uint8)).resize((w, h))) / 255.0
+    """Bilinear resize of a float [H,W(,C)] image to [h,w(,C)]."""
+    img = np.asarray(img, np.float32)
+    r0, r1, ty = _linear_taps(img.shape[0], h)
+    c0, c1, tx = _linear_taps(img.shape[1], w)
+    ty = ty.reshape((-1, 1) + (1,) * (img.ndim - 2))
+    tx = tx.reshape((1, -1) + (1,) * (img.ndim - 2))
+    rows = img[r0] * (1 - ty) + img[r1] * ty
+    return rows[:, c0] * (1 - tx) + rows[:, c1] * tx
 
 
 # ---------------------------------------------------------------------------

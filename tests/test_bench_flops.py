@@ -6,6 +6,7 @@ import sys
 import os
 
 import jax
+import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -28,6 +29,23 @@ def test_analytic_flops_match_hand_calc():
     f_sdf_only = f_sdf - 2 * 256 * 256
     n_core = 512 * 128
     n_up = 512 * 64 + 512 * 16 * 3
-    expect = n_core * (8 * f_sdf + 4 * f_alb) + n_up * f_sdf_only
-    assert abs(fl["executed"] - expect) / expect < 1e-9
-    assert fl["model"] < fl["executed"]
+    expect = n_core * (6 * f_sdf + 3 * f_alb) + n_up * f_sdf_only
+    assert abs(fl["model"] - expect) / expect < 1e-9
+
+
+def test_device_peaks_table():
+    """The roofline peaks come from one table keyed by device_kind; a device
+    that is not in it is an error, not a default."""
+    from bench import device_peaks
+    h100 = device_peaks("NVIDIA H100 80GB HBM3")
+    assert h100["bf16_flops"] == 989e12 and h100["tf32_flops"] == 495e12
+    assert h100["fp32_flops"] == 67e12 and h100["hbm_bytes_per_s"] == 3.35e12
+    with pytest.raises(ValueError, match="no published peaks"):
+        device_peaks("NVIDIA A100-SXM4-80GB")
+
+
+def test_bench_refuses_cpu():
+    """bench.py reports device numbers only from the card."""
+    from bench import device_info
+    with pytest.raises(SystemExit, match="no GPU"):
+        device_info()

@@ -118,3 +118,34 @@ def test_train_conf_unknown_key_warns(caplog):
     assert tcfg.end_iter == 100
     assert tcfg.batch_size == 512  # schema default kept
     assert any("batch_sise" in r.message for r in caplog.records)
+
+
+def test_core_impl_pallas_raises_from_conf():
+    """core_impl 'pallas' names no implementation: it raises with the valid
+    values instead of silently meaning another path."""
+    import pytest
+
+    from rnb_tpu.train import step as steplib
+    conf = config.parse_string('train { core_impl = pallas }')
+    with pytest.raises(ValueError, match=r"\('vjp', 'fwdmode'\)"):
+        steplib.train_conf(conf)
+
+
+def test_core_impl_pallas_raises_from_env(monkeypatch):
+    import pytest
+
+    from rnb_tpu.train import step as steplib
+    monkeypatch.setenv("RNB_CORE_IMPL", "pallas")
+    with pytest.raises(ValueError, match="core_impl must be one of"):
+        steplib.resolve_runtime_flags(steplib.TrainConfig())
+
+
+def test_core_impl_pallas_raises_from_renderer_conf():
+    import pytest
+
+    from rnb_tpu.models import renderer
+    conf = config.parse_string(
+        "model { neus_renderer { core_impl = pallas } }")
+    with pytest.raises(ValueError, match="core_impl must be one of"):
+        renderer.renderer_conf(conf["model"])
+    assert renderer.RendererConfig().core_impl == "vjp"

@@ -184,3 +184,85 @@ def test_nerf_invalid_skip_raises_at_apply():
     views = jnp.zeros((4, 3))
     with pytest.raises(ValueError, match="skips"):
         fields.nerf_apply(cfg, params, pts, views)
+
+
+@pytest.mark.parametrize("skip_in", [(4,), ()])
+def test_fwdmode_core_matches_vjp_core(skip_in):
+    """sdf_value_feat_grad_fwd (∇SDF as a primal output) equals the
+    reverse-mode core in values and in the second-order parameter gradients
+    of an eikonal loss, at f32 'highest'."""
+    cfg = fields.SDFConfig(d_hidden=64, skip_in=skip_in)
+    params = fields.init_sdf_network(jax.random.PRNGKey(1), cfg)
+    pts = jax.random.uniform(jax.random.PRNGKey(2), (256, 3), minval=-0.9,
+                             maxval=0.9)
+
+    def eik_loss(core):
+        def loss(p):
+            sdf, feat, g = core(cfg, p, pts)
+            return (((jnp.linalg.norm(g, axis=-1) - 1.0) ** 2).mean()
+                    + sdf.mean() + 1e-2 * feat.mean())
+        return loss
+
+    with jax.default_matmul_precision("highest"):
+        a = fields.sdf_value_feat_grad(cfg, params, pts)
+        b = fields.sdf_value_feat_grad_fwd(cfg, params, pts)
+        ga = jax.grad(eik_loss(fields.sdf_value_feat_grad))(params)
+        gb = jax.grad(eik_loss(fields.sdf_value_feat_grad_fwd))(params)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(np.asarray(y), np.asarray(x), rtol=1e-5,
+                                   atol=1e-6)
+    for x, y in zip(jax.tree_util.tree_leaves(ga),
+                    jax.tree_util.tree_leaves(gb)):
+        scale = float(np.abs(np.asarray(x)).max()) + 1e-12
+        np.testing.assert_allclose(np.asarray(y) / scale,
+                                   np.asarray(x) / scale, atol=1e-5)
+
+
+@pytest.mark.parametrize("core", ["vjp", "fwdmode"])
+def test_core_is_per_point_under_padding(sdf_cfg, sdf_params, core):
+    """Each point's (sdf, feature, ∇SDF) depends on that point alone, so
+    padding a batch (as validation and extraction do) leaves the real rows
+    unchanged."""
+    fn = {"vjp": fields.sdf_value_feat_grad,
+          "fwdmode": fields.sdf_value_feat_grad_fwd}[core]
+    pts = jax.random.uniform(jax.random.PRNGKey(3), (100, 3), minval=-1.0,
+                             maxval=1.0)
+    padded = jnp.concatenate([pts, jnp.zeros((28, 3))])
+    with jax.default_matmul_precision("highest"):
+        a = jax.jit(fn, static_argnums=0)(sdf_cfg, sdf_params, pts)
+        b = jax.jit(fn, static_argnums=0)(sdf_cfg, sdf_params, padded)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(np.asarray(y)[:100], np.asarray(x),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_check_grads_rendering_apply():
+    """Reverse-mode gradients (and their gradients) of the albedo net match
+    finite differences (the net computes in f32: linear_apply accumulates in
+    f32, so the check uses check_grads' f32 tolerances)."""
+    from jax.test_util import check_grads
+    cfg = fields.RenderingConfig(d_hidden=32)
+    params = fields.init_rendering_network(jax.random.PRNGKey(4), cfg)
+    k = jax.random.split(jax.random.PRNGKey(5), 3)
+    pts = jax.random.normal(k[0], (8, 3)) * 0.3
+    nrm = jax.random.normal(k[1], (8, 3))
+    feat = jax.random.normal(k[2], (8, cfg.d_feature))
+    with jax.default_matmul_precision("highest"):
+        check_grads(lambda p, x, n, f: fields.rendering_apply(cfg, p, x, n,
+                                                              None, f),
+                    (params, pts, nrm, feat), order=2, modes=["rev"])
+
+
+def test_check_grads_nerf_apply():
+    """Reverse-mode gradients of the background NeRF match finite
+    differences (f32, as above)."""
+    from jax.test_util import check_grads
+    cfg = fields.NeRFConfig(D=4, W=32, skips=(2,), multires=3, multires_view=2)
+    params = fields.init_nerf(jax.random.PRNGKey(6), cfg)
+    k = jax.random.split(jax.random.PRNGKey(7), 2)
+    pts = jax.random.normal(k[0], (8, 4)) * 0.3
+    dirs = jax.random.normal(k[1], (8, 3))
+    with jax.default_matmul_precision("highest"):
+        check_grads(lambda p, x, d: jnp.concatenate(
+            fields.nerf_apply(cfg, p, x, d), -1), (params, pts, dirs),
+            order=1, modes=["rev"])

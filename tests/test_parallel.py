@@ -232,3 +232,45 @@ def test_lr_schedule_formula():
                                0.5)
     np.testing.assert_allclose(float(schedules.cos_anneal_ratio(99999, 50000)),
                                1.0)
+
+
+def test_sharded_step_equals_single_step_on_shard_batches(scene, statics):
+    """The ray-sharded step against the single-device step fed the union of
+    the rays the shards drew (parallel.train.shard_batches), from a state
+    whose Adam moments are non-zero, so the parameter update is a smooth
+    function of the gradient: the loss and every leaf's update agree up to
+    the order of the sums. (A psum of the per-device gradients would make
+    the sharded gradient n_dev times too large, which this catches.)"""
+    from rnb_tpu.parallel.train import shard_batches
+
+    small = fields.ModelStatics(sdf=fields.SDFConfig(d_hidden=64),
+                                color=fields.RenderingConfig(d_hidden=32),
+                                nerf=fields.NeRFConfig())
+    params = fields.init_model_bundle(jax.random.PRNGKey(1), small)
+    rcfg = RendererConfig(n_samples=8, n_importance=8, up_sample_steps=2,
+                          perturb=0.0)
+    tcfg = steplib.TrainConfig(end_iter=100, warm_up_end=0, batch_size=64,
+                               matmul_precision="highest")
+    mesh = meshlib.make_ray_mesh()
+    key = jax.random.PRNGKey(9)
+    single = steplib.make_train_step(small, rcfg, tcfg, False, False,
+                                     donate=False)
+    state = steplib.init_train_state(params, tcfg)
+    for i in range(3):
+        state, _ = single(state, scene.arrays, i % 3, key)
+
+    s_sh, m_sh = make_sharded_train_step(small, rcfg, tcfg, False, False,
+                                         mesh, donate=False)(
+        state, scene.arrays, 1, key)
+    batch = shard_batches(scene.arrays, 1, key, state.step, 8, 8)
+    assert batch.rays_o.shape == (64, 3) and batch.rgb.shape == (3, 64, 3)
+    s_1, m_1 = steplib.make_batch_train_step(small, rcfg, tcfg, False,
+                                             False)(state, batch, key)
+    np.testing.assert_allclose(float(m_sh["loss"]), float(m_1["loss"]),
+                               rtol=1e-5)
+    for a, b, p in zip(*(jax.tree_util.tree_leaves(s.params)
+                         for s in (s_sh, s_1, state))):
+        d_sh, d_1 = np.asarray(a) - np.asarray(p), np.asarray(b) - np.asarray(p)
+        scale = np.abs(d_1).max()
+        if scale > 0:
+            assert np.abs(d_sh - d_1).max() < 2e-3 * scale

@@ -183,3 +183,77 @@ def test_eikonal_zero_for_perfect_sdf():
     g /= np.linalg.norm(g, axis=-1, keepdims=True)
     err = (np.linalg.norm(g, axis=-1) - 1.0) ** 2
     assert err.max() < 1e-9
+
+
+def _stable_merge(z, new, *vals):
+    """Reference for _merge_sorted: stable argsort of concat([z, new]) (z
+    entries first on ties), applied with take_along_axis."""
+    order = np.argsort(np.concatenate([z, new], -1), axis=-1, kind="stable")
+    return [np.take_along_axis(np.concatenate(pair, -1), order, -1)
+            for pair in ((z, new),) + vals]
+
+
+def _merge_case(kind, rng):
+    if kind == "distinct":
+        z, new = rng.uniform(0, 4, (64, 24)), rng.uniform(0, 4, (64, 8))
+    elif kind == "ties_across":     # new repeats values of z
+        z = rng.uniform(0, 4, (64, 24))
+        new = z[:, rng.choice(24, 8, replace=False)]
+    elif kind == "ties_within":     # duplicates inside each list
+        z = np.repeat(rng.uniform(0, 4, (64, 12)), 2, axis=-1)
+        new = np.repeat(rng.uniform(0, 4, (64, 4)), 2, axis=-1)
+    else:                           # coarse grid: ties everywhere
+        z = rng.integers(0, 5, (64, 24)).astype(np.float64)
+        new = rng.integers(0, 5, (64, 8)).astype(np.float64)
+    return (np.sort(z, -1).astype(np.float32),
+            np.sort(new, -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["distinct", "ties_across", "ties_within",
+                                  "grid"])
+def test_merge_sorted_equals_stable_argsort(kind):
+    """_merge_sorted (rank counting + one-hot contractions) is bit-for-bit a
+    stable argsort + take_along_axis, ties included, and carries the paired
+    values through the same permutation."""
+    rng = np.random.default_rng(7)
+    z, new = _merge_case(kind, rng)
+    vz = rng.normal(size=z.shape).astype(np.float32)
+    vn = rng.normal(size=new.shape).astype(np.float32)
+    got = jax.jit(renderer._merge_sorted)(jnp.asarray(z), jnp.asarray(new),
+                                          (jnp.asarray(vz), jnp.asarray(vn)))
+    for g, r in zip(got, _stable_merge(z, new, (vz, vn))):
+        np.testing.assert_array_equal(np.asarray(g), r)
+
+
+def _sample_pdf_reference(bins, weights, u):
+    """Inverse-CDF sampling with searchsorted (`renderer.py:39-69`)."""
+    w = weights + 1e-5
+    cdf = np.cumsum(w / w.sum(-1, keepdims=True), -1)
+    cdf = np.concatenate([np.zeros_like(cdf[:, :1]), cdf], -1)
+    out = np.empty_like(u)
+    for b in range(len(u)):
+        inds = np.searchsorted(cdf[b], u[b], side="right")
+        below = np.maximum(inds - 1, 0)
+        above = np.minimum(inds, cdf.shape[-1] - 1)
+        denom = cdf[b, above] - cdf[b, below]
+        denom = np.where(denom < 1e-5, 1.0, denom)
+        t = (u[b] - cdf[b, below]) / denom
+        out[b] = bins[b, below] + t * (bins[b, above] - bins[b, below])
+    return out
+
+
+@pytest.mark.parametrize("det", [True, False])
+def test_sample_pdf_matches_searchsorted(det):
+    rng = np.random.default_rng(3)
+    bins = np.sort(rng.uniform(0.5, 3.0, (32, 33)), -1).astype(np.float32)
+    weights = (rng.uniform(0, 1, (32, 32)) ** 4).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    got = np.asarray(jax.jit(partial(renderer.sample_pdf, n_samples=16,
+                                     det=det))(jnp.asarray(bins),
+                                               jnp.asarray(weights), key=key))
+    u = (np.broadcast_to(np.linspace(0.5 / 16, 1 - 0.5 / 16, 16), (32, 16))
+         if det else np.asarray(jax.random.uniform(key, (32, 16))))
+    ref = _sample_pdf_reference(bins.astype(np.float64),
+                                weights.astype(np.float64),
+                                u.astype(np.float64))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

@@ -6,6 +6,9 @@
 # a 512^3 mesh, and must pass the Chamfer gate (tools/acceptance.py).
 #
 # Usage: tools/run_e2e.sh [KILL_AFTER_SECONDS]  (default 240; 0 = no kill)
+#
+# One JAX process at a time: each stage (the killed run included) ends before
+# the next starts, so a card is never shared between two of them.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 

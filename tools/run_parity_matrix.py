@@ -27,6 +27,9 @@ on the inputs only; the gate measures true surface error).
 
 Usage: python tools/run_parity_matrix.py [--iters 30000] [--variants ...]
        [--out PARITY_r4.json] [--skip_existing]
+
+One JAX process at a time: every stage is a child process that ends before
+the next starts, so a card is never shared between two of them.
 """
 
 from __future__ import annotations

@@ -24,6 +24,9 @@ Pipeline, exercising the offline L0 stage in the loop:
 
 Usage: python tools/run_parity_worldspace.py [--iters 30000]
        [--out PARITY_r5_worldspace.json]
+
+One JAX process at a time: every stage is a child process that ends before
+the next starts, so a card is never shared between two of them.
 """
 
 from __future__ import annotations

@@ -16,7 +16,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -48,15 +47,12 @@ def main():
                                     warmup=True, no_albedo=False)
     key = jax.random.PRNGKey(42)
     first_loss = None
-    t0 = time.perf_counter()
     for i in range(steps):
         state, m = fn(state, scene.arrays, i % scene.n_images, key)
         if i == 0:
             first_loss = float(m["loss"])
-            t0 = time.perf_counter()  # exclude compile
     last_loss = float(m["loss"])
     psnr = float(m["psnr"])
-    dt = time.perf_counter() - t0
 
     grid = renderer.extract_fields(statics, state.params, [-1.01] * 3,
                                    [1.01] * 3, 96)
@@ -75,7 +71,6 @@ def main():
         "psnr": round(psnr, 2),
         "radius_err_mean": round(float(abs(r.mean() - radius)), 5),
         "radius_std": round(float(r.std()), 5),
-        "steps_per_s": round((steps - 1) / dt, 2),
     }))
 
 
